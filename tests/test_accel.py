@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vkrt_tpu.accel import build_lbvh, morton30
+from vkrt_jax.accel import build_lbvh, morton30
 
 
 def random_tris(rng, n):
@@ -104,81 +104,3 @@ def test_lbvh_jit_rebuild_stability(rng):
     b2 = build_lbvh(v0, e1, e2)
     np.testing.assert_array_equal(np.asarray(b1.kids), np.asarray(b2.kids))
     np.testing.assert_array_equal(np.asarray(b1.leaf_tri), np.asarray(b2.leaf_tri))
-
-
-# ---------------------------------------------------------------------------
-# split_permutation (SAH median-split cluster ordering, accel/clusters.py)
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("n", [5, 128, 129, 1000, 9000])
-def test_split_permutation_is_aligned_permutation(rng, n):
-    from vkrt_tpu.accel.clusters import K1, split_permutation
-    v0 = rng.uniform(-10, 10, (n, 3)).astype(np.float32)
-    e1 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
-    e2 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
-    order = split_permutation(v0, e1, e2)
-    # a true permutation of [0, n)
-    assert sorted(order.tolist()) == list(range(n))
-    # every cluster (consecutive K1-run) except the last is full, so the
-    # recursion must only have split at K1 multiples: verify by checking
-    # cluster tightness is at least as good as unordered (smoke) and
-    # that the permutation is deterministic
-    order2 = split_permutation(v0, e1, e2)
-    assert (order == order2).all()
-
-
-def test_split_clusters_tighter_than_morton(rng):
-    """The point of the split order: smaller summed cluster-AABB area
-    than Morton runs on a clustered scene."""
-    from vkrt_tpu.accel.clusters import (K1, _morton_host,
-                                         split_permutation)
-    # clustered geometry (several separated blobs) — Morton runs cross
-    # blob boundaries, the split order must not
-    n = 4096
-    centers = rng.uniform(-50, 50, (8, 3))
-    v0 = (centers[rng.integers(0, 8, n)]
-          + rng.normal(size=(n, 3))).astype(np.float32)
-    e1 = rng.uniform(-0.2, 0.2, (n, 3)).astype(np.float32)
-    e2 = rng.uniform(-0.2, 0.2, (n, 3)).astype(np.float32)
-
-    def cluster_area(order):
-        tmin = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)[order]
-        tmax = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)[order]
-        cmin = tmin.reshape(-1, K1, 3).min(axis=1)
-        cmax = tmax.reshape(-1, K1, 3).max(axis=1)
-        ext = cmax - cmin
-        return float((ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
-                      + ext[:, 2] * ext[:, 0]).sum())
-
-    c = v0 + (e1 + e2) / 3.0
-    codes = _morton_host(v0, e1, e2, c.min(axis=0), c.max(axis=0))
-    morton = np.argsort(codes, kind="stable")
-    split = split_permutation(v0, e1, e2)
-    assert cluster_area(split) <= cluster_area(morton)
-
-
-def test_split_tree_traces_like_morton_tree(rng):
-    """Same hits through dense trace regardless of cluster ordering."""
-    from vkrt_tpu.accel.clusters import build_clusters
-    from vkrt_tpu.rt.dense import trace_dense_rays
-    n = 700
-    v0 = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
-    e1 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
-    e2 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
-    trees = [build_clusters(jnp.asarray(v0), jnp.asarray(e1),
-                            jnp.asarray(e2), device=False, method=m)
-             for m in ("split", "morton")]
-    o = rng.uniform(-8, 8, (128, 3)).astype(np.float32)
-    d = rng.normal(size=(128, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmax = np.full(128, 1e3, np.float32)
-    outs = []
-    for tree in trees:
-        t, slot, u, v = trace_dense_rays(tree, o, d, tmax, block=128,
-                                         interpret=True)
-        tri = np.where(np.asarray(slot) >= 0,
-                       np.asarray(tree.leaf_tri)[np.asarray(slot)], -1)
-        outs.append((np.asarray(t), tri))
-    np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=1e-5, atol=1e-6)
-    # the winning triangle may differ only on exact-t ties; require hits match
-    assert ((outs[0][1] >= 0) == (outs[1][1] >= 0)).all()

@@ -1,4 +1,5 @@
-"""Dense (Pallas, interpret mode) vs reference (XLA LBVH) backend parity."""
+"""Secondary-dispatch re-ordering on the LBVH trace path: the resorted
+frames equal the plain ones."""
 
 import dataclasses
 
@@ -6,41 +7,23 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vkrt_tpu import config as C
-from vkrt_tpu.app.camera import Camera
-from vkrt_tpu.app.framebuffer import rmse
-from vkrt_tpu.scene import build_texture_heap, flatten_model
-from vkrt_tpu.scene.model import Model
-from vkrt_tpu.wavefront.engine import (texture_arrays, make_backend,
+from vkrt_jax import config as C
+from vkrt_jax.app.camera import Camera
+from vkrt_jax.scene import flatten_model
+from vkrt_jax.wavefront.engine import (texture_arrays, make_backend,
                                        render_frame)
 
 W, H = 64, 48
 
 
 @pytest.fixture(scope="module")
-def scene(sponza_model):
-    model = Model(submeshes=sponza_model.submeshes[:6],
-                  materials=sponza_model.materials,
-                  images=sponza_model.images)
-    flat = flatten_model(model)
-    heap = build_texture_heap(model.images)
-    tex = texture_arrays(model.images, flat)
+def scene(subset_model):
+    flat = flatten_model(subset_model)
+    tex = texture_arrays(subset_model.images, flat)
     cam = Camera(W, H)
     cam.set_position(C.CAMERA_START_POSITION)
     cam.set_rotation(C.CAMERA_START_ROTATION)
-    return flat, tex, cam
-
-
-def test_dense_backend_matches_reference(scene):
-    flat, tex, cam = scene
-    cfg = dataclasses.replace(C.config3_reflections(), width=W, height=H,
-                              num_lights=2)
-    args = (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
-            jnp.asarray(C.LIGHT_POSITIONS), cfg)
-    ref_fb, _ = render_frame(make_backend(flat, "reference"), tex, *args)
-    dense_fb, _ = render_frame(make_backend(flat, "dense"), tex, *args,
-                               interpret=True)
-    assert rmse(np.asarray(ref_fb), np.asarray(dense_fb)) <= 1e-3
+    return make_backend(flat), tex, cam
 
 
 def test_resort_secondary_matches_unsorted(scene):
@@ -50,130 +33,19 @@ def test_resort_secondary_matches_unsorted(scene):
     dispatch's inputs and inverse-permutes its outputs. Occlusion is
     exactly visit-order independent, so the shadow-only frame must be
     BIT-identical; frames with reflections are allclose — the closest
-    kernel's NEAR-TIE commits (coincident surfaces / shared edges
-    within float rounding) are visit-order dependent at the ~1 ulp
-    level (see wavefront/resort.py)."""
-    flat, tex, cam = scene
-    # pin the unsorted baseline explicitly (resort defaults ON)
+    hit's NEAR-TIE commits (coincident surfaces / shared edges within
+    float rounding) are visit-order dependent at the ~1 ulp level (see
+    wavefront/resort.py)."""
+    be, tex, cam = scene
     cfg = dataclasses.replace(C.reference_config(), width=W, height=H,
                               resort_secondary=False)
     args = (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
             jnp.asarray(C.LIGHT_POSITIONS))
     cfg_sh = dataclasses.replace(cfg, enable_reflections=False)
-    for kind, interp in (("reference", False), ("dense", True)):
-        be = make_backend(flat, kind)
-        for base_cfg, exact in ((cfg_sh, True), (cfg, False)):
-            cfg_rs = dataclasses.replace(base_cfg, resort_secondary=True)
-            fb0, rc0 = render_frame(be, tex, *args, base_cfg,
-                                    interpret=interp)
-            fb1, rc1 = render_frame(be, tex, *args, cfg_rs,
-                                    interpret=interp)
-            if exact:
-                np.testing.assert_array_equal(np.asarray(fb0),
-                                              np.asarray(fb1))
-            else:
-                np.testing.assert_allclose(np.asarray(fb0),
-                                           np.asarray(fb1), atol=1e-5)
-            np.testing.assert_array_equal(np.asarray(rc0),
-                                          np.asarray(rc1))
-
-
-def test_group_sort_matches_unsorted(scene):
-    """GROUP (128-lane) granularity resort (cfg.group_sort_shadows —
-    wavefront/resort.py group_*): whole lane-groups permute by
-    mean-surface-point cell via one jnp.take along the Nb axis, masks
-    inverse-permuted. Shadow masks are exactly permutation-independent
-    (any-hit) → frames BIT-identical. (group_sort_closest was pruned in
-    round 5 — measured dead, tools/r4_hw_queue.py.) partition_shadows
-    is pinned off: group-sort is its fallback path."""
-    flat, tex, cam = scene
-    # pin the unsorted baseline explicitly (group_sort_shadows defaults ON)
-    cfg = dataclasses.replace(C.reference_config(), width=W, height=H,
-                              group_sort_shadows=False,
-                              partition_shadows=False)
-    args = (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
-            jnp.asarray(C.LIGHT_POSITIONS))
-    for kind, interp in (("reference", False), ("dense", True)):
-        be = make_backend(flat, kind)
-        cfg_gs = dataclasses.replace(cfg, group_sort_shadows=True)
-        fb0, rc0 = render_frame(be, tex, *args, cfg, interpret=interp)
-        fb1, rc1 = render_frame(be, tex, *args, cfg_gs, interpret=interp)
-        np.testing.assert_array_equal(np.asarray(fb0), np.asarray(fb1))
-        np.testing.assert_array_equal(np.asarray(rc0), np.asarray(rc1))
-
-
-def test_group_sort_composes_with_consolidation(scene):
-    """group_sort_shadows permutes groups BEFORE the depth>=1 pack
-    (wavefront/pack.py plans on the permuted liveness) and
-    inverse-permutes after scatter_back — the composition must stay
-    bit-identical on shadow masks."""
-    flat, tex, cam = scene
-    # partition_shadows pinned off: it supersedes group-sort at depth>=1
-    # when on, which would make this A/B vacuous
-    cfg = dataclasses.replace(C.reference_config(), width=W, height=H,
-                              enable_reflections=True,
-                              partition_shadows=False)
-    args = (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
-            jnp.asarray(C.LIGHT_POSITIONS))
-    be = make_backend(flat, "dense")
-    fb0, rc0 = render_frame(
-        be, tex, *args,
-        dataclasses.replace(cfg, consolidate_secondary=True,
-                            group_sort_shadows=False), interpret=True)
-    fb1, rc1 = render_frame(
-        be, tex, *args,
-        dataclasses.replace(cfg, consolidate_secondary=True,
-                            group_sort_shadows=True), interpret=True)
-    np.testing.assert_array_equal(np.asarray(fb0), np.asarray(fb1))
-    np.testing.assert_array_equal(np.asarray(rc0), np.asarray(rc1))
-
-
-def test_consolidate_secondary_bit_exact(scene):
-    """Depth>=1 shadow consolidation (cfg.consolidate_secondary,
-    wavefront/pack.py): live rays pack into leading blocks via one-hot
-    MXU matmuls, the occlusion dispatch runs on the packed wavefront,
-    masks scatter back. Occlusion is order-independent and the pack is
-    value-exact, so frames must be BIT-identical (hardware-verified in
-    tools/r3_hw_queue6.py; pinned here on both backends)."""
-    flat, tex, cam = scene
-    args = (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
-            jnp.asarray(C.LIGHT_POSITIONS))
-    cfg = dataclasses.replace(C.reference_config(), width=W, height=H)
-    for kind, interp in (("reference", False), ("dense", True)):
-        be = make_backend(flat, kind)
-        fb0, rc0 = render_frame(
-            be, tex, *args,
-            dataclasses.replace(cfg, consolidate_secondary=False),
-            interpret=interp)
-        fb1, rc1 = render_frame(
-            be, tex, *args,
-            dataclasses.replace(cfg, consolidate_secondary=True),
-            interpret=interp)
-        np.testing.assert_array_equal(np.asarray(fb0), np.asarray(fb1))
-        np.testing.assert_array_equal(np.asarray(rc0), np.asarray(rc1))
-
-
-def test_recheck_secondary_matches_baseline(scene):
-    """Two-level pregate (cfg.recheck_secondary: interval prologue +
-    in-kernel per-ray re-check at DMA-issue time, rt/dense.py
-    pregate="recheck") replaces the in-kernel prepass for depth>=1
-    closest and every shadow dispatch. Occlusion is visit-order
-    independent → the shadow-only frame is BIT-identical; frames with
-    reflections are allclose (near-tie commits, same contract as the
-    resort). Runs on the dense backend — the only one with a gated
-    kernel; ReferenceBackend accepts and ignores the flag."""
-    flat, tex, cam = scene
-    cfg = dataclasses.replace(C.reference_config(), width=W, height=H,
-                              resort_secondary=False,
-                              recheck_secondary=False)
-    args = (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
-            jnp.asarray(C.LIGHT_POSITIONS))
-    cfg_sh = dataclasses.replace(cfg, enable_reflections=False)
-    be = make_backend(flat, "dense")
     for base_cfg, exact in ((cfg_sh, True), (cfg, False)):
-        cfg_rc = dataclasses.replace(base_cfg, recheck_secondary=True)
-        fb0, rc0 = render_frame(be, tex, *args, base_cfg, interpret=True)
-        fb1, rc1 = render_frame(be, tex, *args, cfg_rc, interpret=True)
+        cfg_rs = dataclasses.replace(base_cfg, resort_secondary=True)
+        fb0, rc0 = render_frame(be, tex, *args, base_cfg)
+        fb1, rc1 = render_frame(be, tex, *args, cfg_rs)
         if exact:
             np.testing.assert_array_equal(np.asarray(fb0), np.asarray(fb1))
         else:
@@ -182,131 +54,19 @@ def test_recheck_secondary_matches_baseline(scene):
         np.testing.assert_array_equal(np.asarray(rc0), np.asarray(rc1))
 
 
-def test_partition_shadows_bit_exact(scene):
-    """Two-level per-ray repartition of shadow dispatches
-    (cfg.partition_shadows — wavefront/lanesort.py in-block stable sort
-    by fine surface-point cell, then the group radix partition over the
-    now key-pure groups). Only pos + a cast bitmask move; sd/st are
-    recomputed elementwise from the moved point, occlusion masks are
-    visit-order independent, and the one-hot moves are value-exact, so
-    frames must be BIT-identical — in both compositions with the
-    depth>=1 pack (partition of the packed prefix / no pack)."""
-    flat, tex, cam = scene
-    args = (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
-            jnp.asarray(C.LIGHT_POSITIONS))
+def test_group_sort_matches_unsorted(scene):
+    """GROUP (128-lane) granularity resort (cfg.group_sort_shadows —
+    wavefront/resort.py group_*): whole lane-groups permute by
+    mean-surface-point cell via one jnp.take along the Nb axis, masks
+    inverse-permuted. Shadow masks are exactly permutation-independent
+    (any-hit) → frames BIT-identical."""
+    be, tex, cam = scene
     cfg = dataclasses.replace(C.reference_config(), width=W, height=H,
-                              enable_reflections=False)
-    be = make_backend(flat, "dense")
-    for cons in (False, True):
-        base = dataclasses.replace(cfg, consolidate_secondary=cons,
-                                   partition_shadows=False)
-        part = dataclasses.replace(base, partition_shadows=True)
-        fb0, rc0 = render_frame(be, tex, *args, base, interpret=True)
-        fb1, rc1 = render_frame(be, tex, *args, part, interpret=True)
-        np.testing.assert_array_equal(np.asarray(fb0), np.asarray(fb1))
-        np.testing.assert_array_equal(np.asarray(rc0), np.asarray(rc1))
-
-
-def test_partition_shadows_with_reflections(scene):
-    """partition_shadows under the full depth-2 workload (shadow sets at
-    both depths, pack composition at depth 1): shadow masks stay exact,
-    so the frame is bit-identical — the closest dispatch is untouched."""
-    flat, tex, cam = scene
+                              group_sort_shadows=False)
     args = (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
             jnp.asarray(C.LIGHT_POSITIONS))
-    cfg = dataclasses.replace(C.reference_config(), width=W, height=H)
-    be = make_backend(flat, "dense")
-    fb0, rc0 = render_frame(be, tex, *args, cfg, interpret=True)
-    fb1, rc1 = render_frame(
-        be, tex, *args,
-        dataclasses.replace(cfg, partition_shadows=True), interpret=True)
-    np.testing.assert_array_equal(np.asarray(fb0), np.asarray(fb1))
-    np.testing.assert_array_equal(np.asarray(rc0), np.asarray(rc1))
-
-
-def test_partition_closest_matches_baseline(scene):
-    """cfg.partition_closest re-tiles the depth>=1 reflection closest
-    dispatch (octant + origin-cell lane sort, then group partition).
-    Closest results are order-independent up to ~1-ulp NEAR-TIE commits
-    (the resort contract), so the frame is allclose; all 40 output
-    channels (t/u/v/hit + 36 attrs) return through one exact inverse
-    pass with t's inf miss sentinel sanitized around the one-hot matmul."""
-    flat, tex, cam = scene
-    args = (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
-            jnp.asarray(C.LIGHT_POSITIONS))
-    cfg = dataclasses.replace(C.reference_config(), width=W, height=H)
-    be = make_backend(flat, "dense")
-    fb0, rc0 = render_frame(be, tex, *args, cfg, interpret=True)
-    fb1, rc1 = render_frame(
-        be, tex, *args,
-        dataclasses.replace(cfg, partition_closest=True), interpret=True)
-    fb0, fb1 = np.asarray(fb0), np.asarray(fb1)
-    assert np.isfinite(fb1).all()
-    np.testing.assert_allclose(fb0, fb1, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(rc0), np.asarray(rc1))
-
-
-def test_partition_shadows_capped_prefix_bit_exact(scene):
-    """At wavefronts with >=8 occlusion blocks the lane sort runs only
-    on the packed live prefix (first quarter of blocks) and the tail is
-    identity — exactness must not depend on the cap (live rays beyond
-    it only lose coherence). 128x96 -> 12288 rays = 12 blocks of 1024,
-    capr = 3 blocks."""
-    flat, tex, _ = scene
-    cam = Camera(128, 96)
-    cam.set_position(C.CAMERA_START_POSITION)
-    cam.set_rotation(C.CAMERA_START_ROTATION)
-    args = (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
-            jnp.asarray(C.LIGHT_POSITIONS))
-    cfg = dataclasses.replace(C.reference_config(), width=128, height=96,
-                              consolidate_secondary=True)
-    be = make_backend(flat, "dense")
-    fb0, rc0 = render_frame(
-        be, tex, *args,
-        dataclasses.replace(cfg, partition_shadows=False), interpret=True)
-    fb1, rc1 = render_frame(
-        be, tex, *args,
-        dataclasses.replace(cfg, partition_shadows=True), interpret=True)
-    np.testing.assert_array_equal(np.asarray(fb0), np.asarray(fb1))
-    np.testing.assert_array_equal(np.asarray(rc0), np.asarray(rc1))
-
-
-def test_partition_closest_deep_carry(scene):
-    """Sorted-depth pipeline at max_depth=4 (config-5 shading shape):
-    the reflection carry (origins/dirs/attenuation/active) returns
-    through the per-depth inverse when more depths remain — frames
-    allclose, ray counts equal."""
-    flat, tex, cam = scene
-    args = (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
-            jnp.asarray(C.LIGHT_POSITIONS))
-    cfg = dataclasses.replace(C.config5_stress(), width=W, height=H)
-    be = make_backend(flat, "dense")
-    fb0, rc0 = render_frame(be, tex, *args, cfg, interpret=True)
-    fb1, rc1 = render_frame(
-        be, tex, *args,
-        dataclasses.replace(cfg, partition_closest=True), interpret=True)
-    fb0, fb1 = np.asarray(fb0), np.asarray(fb1)
-    assert np.isfinite(fb1).all()
-    np.testing.assert_allclose(fb0, fb1, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(rc0), np.asarray(rc1))
-
-
-def test_sub_gate_bit_exact(scene):
-    """cfg.sub_gate_shadows / sub_gate_closest (in-sweep sub-cluster
-    hierarchy): the kernels slab-test the 8 per-cluster 16-tri sub-run
-    AABBs annotated into tri_data's pad columns at build and run only
-    the hitting sub-sweeps. Pure work-skipping — sub-runs visit in
-    ascending sublane order with strict-< commits, so hit selection,
-    tie-breaks and any-hit masks are bit-identical to the full sweep."""
-    flat, tex, cam = scene
-    args = (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
-            jnp.asarray(C.LIGHT_POSITIONS))
-    cfg = dataclasses.replace(C.reference_config(), width=W, height=H)
-    be = make_backend(flat, "dense")
-    fb0, rc0 = render_frame(be, tex, *args, cfg, interpret=True)
-    fb1, rc1 = render_frame(
-        be, tex, *args,
-        dataclasses.replace(cfg, sub_gate_shadows=True,
-                            sub_gate_closest=True), interpret=True)
+    cfg_gs = dataclasses.replace(cfg, group_sort_shadows=True)
+    fb0, rc0 = render_frame(be, tex, *args, cfg)
+    fb1, rc1 = render_frame(be, tex, *args, cfg_gs)
     np.testing.assert_array_equal(np.asarray(fb0), np.asarray(fb1))
     np.testing.assert_array_equal(np.asarray(rc0), np.asarray(rc1))

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from vkrt_tpu.app.camera import Camera
-from vkrt_tpu.config import (CAMERA_START_POSITION, CAMERA_START_ROTATION,
+from vkrt_jax.app.camera import Camera
+from vkrt_jax.config import (CAMERA_START_POSITION, CAMERA_START_ROTATION,
                              REF_HEIGHT, REF_WIDTH)
-from vkrt_tpu.utils import mathutils as mu
+from vkrt_jax.utils import mathutils as mu
 
 
 def make_ref_camera():

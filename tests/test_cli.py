@@ -1,6 +1,6 @@
 """CLI argument handling (the main.cpp analogue's contract)."""
 
-from vkrt_tpu.app.cli import build_parser, resolve_config
+from vkrt_jax.app.cli import build_parser, resolve_config
 
 
 def test_config_selection():
@@ -42,22 +42,37 @@ def test_cli_flythrough_pipelined(tmp_path):
     import numpy as np
     from PIL import Image
 
-    from vkrt_tpu.app import cli
-    from vkrt_tpu.app.flythrough import camera_path
-    from vkrt_tpu.wavefront.engine import Renderer
-    from vkrt_tpu import config as C
+    from conftest import TEXDIM
+
+    from vkrt_jax.app import cli
+    from vkrt_jax.app.flythrough import camera_path
+    from vkrt_jax.wavefront.engine import Renderer
+    from vkrt_jax import config as C
     import dataclasses
 
     out = tmp_path / "fly.png"
     rc = cli.main(["--config", "1", "--width", "64", "--height", "48",
-                   "--frames", "3", "--backend", "reference",
-                   "--max-texture-dim", "32", "--output", str(out)])
+                   "--frames", "3", "--max-texture-dim", str(TEXDIM),
+                   "--output", str(out)])
     assert rc == 0 and out.exists()
     png = np.asarray(Image.open(out))
 
     cfg = dataclasses.replace(C.BASELINE_CONFIGS[1](), width=64, height=48)
     cams = list(camera_path(64, 48))
-    r = Renderer(cli.DEFAULT_SCENE, cfg, backend="reference",
-                 max_texture_dim=32, quantize=True)
+    r = Renderer(cli.DEFAULT_SCENE, cfg, max_texture_dim=TEXDIM,
+                 quantize=True)
     fb, _ = r.render(cams[2])      # the last pipelined frame
     np.testing.assert_array_equal(png, fb)
+
+
+def test_shard_beyond_visible_devices_is_an_error():
+    """--shard N with fewer devices visible fails and names them (no
+    silent re-exec onto a virtual CPU mesh)."""
+    import jax
+    import pytest
+
+    from vkrt_jax.app.cli import _shard_devices
+    n = len(jax.devices())
+    assert len(_shard_devices(2)) == 2 and len(_shard_devices(-1)) == n
+    with pytest.raises(SystemExit, match=f"only {n} device"):
+        _shard_devices(n + 1)

@@ -1,15 +1,14 @@
-"""Renderer/Rasterizer class API end-to-end on CPU (reference backend)."""
+"""Renderer/Rasterizer class API end-to-end on CPU."""
 
 import dataclasses
 
 import numpy as np
 import pytest
 
-from vkrt_tpu import config as C
-from vkrt_tpu.app.camera import Camera
-from vkrt_tpu.app.flythrough import camera_path
-
-SPONZA = "/root/reference/models/sponza/Sponza.gltf"
+from conftest import TEXDIM
+from vkrt_jax import config as C
+from vkrt_jax.app.camera import Camera
+from vkrt_jax.app.flythrough import camera_path
 
 
 @pytest.fixture(scope="module")
@@ -18,8 +17,8 @@ def small_cfg():
 
 
 def test_renderer_class_full_scene(small_cfg):
-    from vkrt_tpu.wavefront.engine import Renderer
-    r = Renderer(SPONZA, small_cfg, backend="reference", max_texture_dim=32)
+    from vkrt_jax.wavefront.engine import Renderer
+    r = Renderer(C.DEFAULT_SCENE, small_cfg, max_texture_dim=TEXDIM)
     cam = Camera(small_cfg.width, small_cfg.height)
     cam.set_position(C.CAMERA_START_POSITION)
     cam.set_rotation(C.CAMERA_START_ROTATION)
@@ -30,49 +29,44 @@ def test_renderer_class_full_scene(small_cfg):
     assert fb.max() > 0.1                       # something rendered
 
     # scene cache: a second renderer must reuse the device assets
-    from vkrt_tpu.wavefront import engine
+    from vkrt_jax.wavefront import engine
     n_entries = len(engine._SCENE_CACHE)
-    r2 = Renderer(SPONZA, small_cfg, backend="reference", max_texture_dim=32)
+    r2 = Renderer(C.DEFAULT_SCENE, small_cfg, max_texture_dim=TEXDIM)
     assert len(engine._SCENE_CACHE) == n_entries
     assert r2.backend is r.backend
 
 
 def test_odd_resolution_padding(small_cfg):
     # 100x75 is not a multiple of the 32x16 tile — engine pads and crops
-    from vkrt_tpu.wavefront.engine import Renderer
+    from vkrt_jax.wavefront.engine import Renderer
     cfg = dataclasses.replace(small_cfg, width=100, height=75, num_lights=0,
                               enable_shadows=False, flat_albedo=True,
                               max_depth=1)
-    r = Renderer(SPONZA, cfg, backend="reference", max_texture_dim=32)
+    r = Renderer(C.DEFAULT_SCENE, cfg, max_texture_dim=TEXDIM)
     cam = Camera(cfg.width, cfg.height)
     cam.set_position(C.CAMERA_START_POSITION)
     cam.set_rotation(C.CAMERA_START_ROTATION)
     fb, rays = r.render(cam)
     assert fb.shape == (75, 100, 3)
     assert np.isfinite(fb).all()
+    assert rays == 100 * 75                     # padding rays never count
 
 
-def test_midpath_camera_pose_golden(sponza_model):
+def test_midpath_camera_pose_golden(subset_model):
     """Golden compare at a NON-start pose (frame 80 of the fly-through) —
     catches pose-dependent ray-gen/tiling bugs the fixed-pose tests miss."""
-    import dataclasses
-
     import jax.numpy as jnp
 
-    from vkrt_tpu.app.framebuffer import rmse
-    from vkrt_tpu.golden import render_golden
-    from vkrt_tpu.scene import build_texture_heap, flatten_model
-    from vkrt_tpu.scene.model import Model
-    from vkrt_tpu.wavefront.engine import (texture_arrays, make_backend,
+    from vkrt_jax.app.framebuffer import rmse
+    from vkrt_jax.golden import render_golden
+    from vkrt_jax.scene import build_texture_heap, flatten_model
+    from vkrt_jax.wavefront.engine import (texture_arrays, make_backend,
                                            render_frame)
 
-    model = Model(submeshes=sponza_model.submeshes[:6],
-                  materials=sponza_model.materials,
-                  images=sponza_model.images)
-    flat = flatten_model(model)
-    heap = build_texture_heap(model.images)
-    tex = texture_arrays(model.images, flat)
-    backend = make_backend(flat, "reference")
+    flat = flatten_model(subset_model)
+    heap = build_texture_heap(subset_model.images)
+    tex = texture_arrays(subset_model.images, flat)
+    backend = make_backend(flat)
     cams = list(camera_path(64, 48))
     cam = cams[80]
     cfg = dataclasses.replace(C.config2_shadows(), width=64, height=48)
@@ -81,41 +75,3 @@ def test_midpath_camera_pose_golden(sponza_model):
                          jnp.asarray(C.LIGHT_POSITIONS), cfg)
     golden = render_golden(flat, heap, cam.proj_inverse, cam.view_inverse, cfg)
     assert rmse(np.asarray(fb), golden) <= 1e-3
-
-
-def test_tiny_frame_occl_block_fallback(sponza_model):
-    """A 32x16 frame (one 512-ray tile) doesn't divide OCCL_BLOCK=1024 —
-    the shadow dispatch must fall back to 512-ray blocks and still match
-    the reference backend."""
-    import dataclasses
-
-    from vkrt_tpu import config as C
-    from vkrt_tpu.app.camera import Camera
-    from vkrt_tpu.app.framebuffer import rmse
-    from vkrt_tpu.scene import flatten_model
-    from vkrt_tpu.scene.model import Model
-    from vkrt_tpu.wavefront.engine import (make_backend, render_frame,
-                                           texture_arrays, _occl_block)
-
-    assert _occl_block(512) == 512 and _occl_block(2048) == 1024
-
-    model = Model(submeshes=sponza_model.submeshes[:6],
-                  materials=sponza_model.materials,
-                  images=sponza_model.images)
-    flat = flatten_model(model)
-    tex = texture_arrays(model.images, flat)
-    cfg = dataclasses.replace(C.config2_shadows(), width=32, height=16,
-                              num_lights=4)
-    cam = Camera(cfg.width, cfg.height)
-    cam.set_position(C.CAMERA_START_POSITION)
-    cam.set_rotation(C.CAMERA_START_ROTATION)
-    import jax.numpy as jnp
-    lights = jnp.asarray(C.LIGHT_POSITIONS)
-    fbs = []
-    for kind in ("dense", "reference"):
-        backend = make_backend(flat, kind)
-        fb, _ = render_frame(backend, tex, jnp.asarray(cam.proj_inverse),
-                             jnp.asarray(cam.view_inverse), lights, cfg,
-                             interpret=True)
-        fbs.append(np.asarray(fb))
-    assert rmse(fbs[0], fbs[1]) < 1e-3

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from vkrt_tpu import config as C
-from vkrt_tpu.app.camera import Camera
-from vkrt_tpu.app.flythrough import DEFAULT_PATH, apply_keys, camera_path
+from vkrt_jax import config as C
+from vkrt_jax.app.camera import Camera
+from vkrt_jax.app.flythrough import DEFAULT_PATH, apply_keys, camera_path
 
 
 def test_path_yields_independent_snapshots():

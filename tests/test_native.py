@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from vkrt_tpu.golden.cpu_tracer import closest_hit as brute_c
-from vkrt_tpu.golden.cpu_tracer import occluded as brute_o
+from vkrt_jax.golden.cpu_tracer import closest_hit as brute_c
+from vkrt_jax.golden.cpu_tracer import occluded as brute_o
 
-native = pytest.importorskip("vkrt_tpu.native")
+from vkrt_jax import native
 
 
 @pytest.fixture(scope="module")
@@ -16,8 +16,6 @@ def nat_scene():
     v0 = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
     e1 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
     e2 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
-    if not native.available():
-        pytest.skip("native library unavailable")
     return v0, e1, e2, native.NativeBVH(v0, e1, e2)
 
 
@@ -53,20 +51,20 @@ def test_native_occluded_matches_brute(nat_scene):
     assert (occ == bocc).mean() > 0.995
 
 
-def test_native_golden_render_matches_brute(sponza_model):
+def test_native_golden_render_matches_brute(subset_model):
     """Full-frame oracle parity: native-accelerated vs brute."""
     import dataclasses
 
-    from vkrt_tpu import config as C
-    from vkrt_tpu.app.camera import Camera
-    from vkrt_tpu.app.framebuffer import rmse
-    from vkrt_tpu.golden import render_golden
-    from vkrt_tpu.scene import build_texture_heap, flatten_model
-    from vkrt_tpu.scene.model import Model
+    from vkrt_jax import config as C
+    from vkrt_jax.app.camera import Camera
+    from vkrt_jax.app.framebuffer import rmse
+    from vkrt_jax.golden import render_golden
+    from vkrt_jax.scene import build_texture_heap, flatten_model
+    from vkrt_jax.scene.model import Model
 
-    model = Model(submeshes=sponza_model.submeshes[:4],
-                  materials=sponza_model.materials,
-                  images=sponza_model.images)
+    model = Model(submeshes=subset_model.submeshes[:4],
+                  materials=subset_model.materials,
+                  images=subset_model.images)
     flat = flatten_model(model)
     heap = build_texture_heap(model.images)
     cam = Camera(64, 48)
@@ -78,3 +76,12 @@ def test_native_golden_render_matches_brute(sponza_model):
     b = render_golden(flat, heap, cam.proj_inverse, cam.view_inverse, cfg,
                       accel="native")
     assert rmse(a, b) <= 1e-3
+
+
+def test_native_build_failure_raises(monkeypatch, tmp_path):
+    """A library that cannot be built raises instead of leaving the
+    golden gates without their oracle."""
+    monkeypatch.setattr(native, "_DIR", str(tmp_path))      # no Makefile
+    monkeypatch.setattr(native, "_SO", str(tmp_path / "lib.so"))
+    with pytest.raises(RuntimeError, match="failed"):
+        native._build()

@@ -1,13 +1,35 @@
-"""Multi-chip sharding on the virtual 8-device CPU mesh (SURVEY.md §4)."""
+"""Multi-device sharding on the virtual 8-device CPU mesh (SURVEY.md §4)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from vkrt_tpu import config as C
-from vkrt_tpu.app.camera import Camera
-from vkrt_tpu.parallel import make_mesh, render_frame_sharded
-from vkrt_tpu.wavefront.engine import render_frame
+from vkrt_jax import config as C
+from vkrt_jax.app.camera import Camera
+from vkrt_jax.parallel import make_mesh, render_frame_sharded
+from vkrt_jax.wavefront.engine import render_frame
+
+
+def _jit(fn, **static):
+    import functools
+    return jax.jit(functools.partial(fn, **static))
+
+
+def _cam_args(cfg):
+    cam = Camera(cfg.width, cfg.height)
+    cam.set_position(C.CAMERA_START_POSITION)
+    cam.set_rotation(C.CAMERA_START_ROTATION)
+    return (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
+            jnp.asarray(C.LIGHT_POSITIONS))
+
+
+@pytest.fixture(scope="module")
+def subset_scene(subset_model):
+    from vkrt_jax.scene import flatten_model
+    from vkrt_jax.wavefront.engine import make_backend, texture_arrays
+    flat = flatten_model(subset_model)
+    return make_backend(flat), texture_arrays(subset_model.images, flat)
 
 
 def test_sharded_matches_single_device():
@@ -15,17 +37,15 @@ def test_sharded_matches_single_device():
     backend, tex, _ = g._tiny_scene()
     cfg = C.RenderConfig(width=64, height=48, max_depth=2, num_lights=2,
                          enable_shadows=True, enable_reflections=True)
-    cam = Camera(cfg.width, cfg.height)
-    cam.set_position(C.CAMERA_START_POSITION)
-    cam.set_rotation(C.CAMERA_START_ROTATION)
-    args = (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
-            jnp.asarray(C.LIGHT_POSITIONS))
+    args = _cam_args(cfg)
 
-    single_fb, single_rays = render_frame(backend, tex, *args, cfg)
+    single_fb, single_rays = _jit(render_frame, cfg=cfg)(backend, tex,
+                                                          *args)
 
     assert len(jax.devices()) == 8, "conftest should provide 8 CPU devices"
     mesh = make_mesh()
-    fb, rays = render_frame_sharded(backend, tex, *args, cfg, mesh)
+    fb, rays = _jit(render_frame_sharded, cfg=cfg, mesh=mesh)(
+        backend, tex, *args)
 
     np.testing.assert_allclose(np.asarray(fb), np.asarray(single_fb),
                                atol=1e-5)
@@ -38,89 +58,44 @@ def test_mesh_shapes():
     assert mesh.axis_names == ("rays",)
 
 
-def test_sharded_dense_matches_single_device_sponza_subset(sponza_model,
-                                                           sponza_flat):
-    """The PRODUCTION dense/Pallas backend under shard_map on real scene
-    data (a Sponza subset): sharded == single-device. Round-2 gap — every
-    sharded artifact ran the XLA reference backend on a synthetic scene,
-    so whether pallas_call + the argsort prologue compose with a sharded
-    block axis was unproven before hardware."""
+def test_sharded_generated_subset_with_resort(subset_scene):
+    """The production path under shard_map on generated-scene data:
+    sharded == single-device, also with the secondary resort (the radix
+    partition runs per shard — no collective). allclose: the reflection
+    round's near-tie commits are visit-order dependent at ~1 ulp."""
     import dataclasses
 
-    from vkrt_tpu.wavefront.engine import make_backend, texture_arrays
-
-    T = 8192                     # 64 clusters, 1 supercluster
-    flat = dataclasses.replace(
-        sponza_flat,
-        indices=sponza_flat.indices[:T],
-        tri_base_color=sponza_flat.tri_base_color[:T],
-        tri_metallic_roughness=sponza_flat.tri_metallic_roughness[:T],
-        tri_normal=sponza_flat.tri_normal[:T],
-        tri_submesh=sponza_flat.tri_submesh[:T])
-    backend = make_backend(flat, "dense")
-    tex = texture_arrays(sponza_model.images, flat)
-
+    backend, tex = subset_scene
     cfg = C.RenderConfig(width=64, height=32, max_depth=2, num_lights=2,
-                         enable_shadows=True, enable_reflections=True,
-                         resort_secondary=False)  # baseline pinned (A/B)
-    cam = Camera(cfg.width, cfg.height)
-    cam.set_position(C.CAMERA_START_POSITION)
-    cam.set_rotation(C.CAMERA_START_ROTATION)
-    args = (jnp.asarray(cam.proj_inverse), jnp.asarray(cam.view_inverse),
-            jnp.asarray(C.LIGHT_POSITIONS))
-
-    single_fb, single_rays = render_frame(backend, tex, *args, cfg,
-                                          interpret=True)
+                         enable_shadows=True, enable_reflections=True)
+    args = _cam_args(cfg)
+    single_fb, single_rays = _jit(render_frame, cfg=cfg)(backend, tex,
+                                                          *args)
     mesh = make_mesh()
-    fb, rays = render_frame_sharded(backend, tex, *args, cfg, mesh,
-                                    interpret=True)
-    np.testing.assert_allclose(np.asarray(fb), np.asarray(single_fb),
-                               atol=1e-5)
-    assert int(np.asarray(rays).sum()) == int(np.asarray(single_rays).sum())
-
-    # resort under shard_map: the radix partition runs per shard (each
-    # device re-tiles its own rays — no collective). allclose, not
-    # bit-equal: the reflection round's near-tie commits are
-    # visit-order dependent at the ~1 ulp level (wavefront/resort.py).
-    import dataclasses as _dc
-    cfg_rs = _dc.replace(cfg, resort_secondary=True)
-    fb_rs, rays_rs = render_frame_sharded(backend, tex, *args, cfg_rs,
-                                          mesh, interpret=True)
-    np.testing.assert_allclose(np.asarray(fb_rs), np.asarray(fb),
-                               atol=1e-5)
-    assert int(np.asarray(rays_rs).sum()) == int(np.asarray(rays).sum())
+    for rs in (False, True):
+        fb, rays = _jit(render_frame_sharded, mesh=mesh,
+                        cfg=dataclasses.replace(cfg, resort_secondary=rs))(
+            backend, tex, *args)
+        np.testing.assert_allclose(np.asarray(fb), np.asarray(single_fb),
+                                   atol=1e-5)
+        assert (int(np.asarray(rays).sum())
+                == int(np.asarray(single_rays).sum()))
 
 
-def test_sharded_edge_raster_matches_single_device(sponza_model,
-                                                   sponza_flat):
-    """The edge-function rasterizer under shard_map (pixel blocks split,
-    setup slabs replicated): sharded == single-device bit-exact on a
-    Sponza subset."""
-    import dataclasses
+def test_sharded_raster_matches_single_device(subset_scene):
+    """The ray-cast raster under shard_map (each MSAA sample's pixel
+    blocks split, scene replicated): sharded == single-device. One
+    sample: the 8-sample resolve runs the same body per offset."""
+    from vkrt_jax.parallel.mesh import render_raster_frame_sharded
+    from vkrt_jax.raster import render_raster_frame
 
-    from vkrt_tpu.parallel.mesh import render_raster_frame_sharded
-    from vkrt_tpu.raster.pipeline import render_raster_frame_edge
-    from vkrt_tpu.wavefront.engine import make_backend, texture_arrays
-
-    T = 8192
-    flat = dataclasses.replace(
-        sponza_flat,
-        indices=sponza_flat.indices[:T],
-        tri_base_color=sponza_flat.tri_base_color[:T],
-        tri_metallic_roughness=sponza_flat.tri_metallic_roughness[:T],
-        tri_normal=sponza_flat.tri_normal[:T],
-        tri_submesh=sponza_flat.tri_submesh[:T])
-    backend = make_backend(flat, "dense")
-    tex = texture_arrays(sponza_model.images, flat)
+    backend, tex = subset_scene
     cfg = C.RenderConfig(width=64, height=32)
-    cam = Camera(cfg.width, cfg.height)
-    cam.set_position(C.CAMERA_START_POSITION)
-    cam.set_rotation(C.CAMERA_START_ROTATION)
-    vm = jnp.asarray(cam.view_matrix)
-    pm = jnp.asarray(cam.projection_matrix)
-    single = np.asarray(render_raster_frame_edge(
-        backend.tree, tex, vm, pm, cfg, msaa=1, interpret=True))
+    pi, vi, _ = _cam_args(cfg)
     mesh = make_mesh()
-    sharded = np.asarray(render_raster_frame_sharded(
-        backend.tree, tex, vm, pm, cfg, mesh, msaa=1, interpret=True))
-    np.testing.assert_array_equal(sharded, single)
+    single = np.asarray(_jit(render_raster_frame, cfg=cfg, msaa=1)(
+        backend, tex, pi, vi))
+    sharded = np.asarray(_jit(render_raster_frame_sharded, cfg=cfg,
+                              mesh=mesh, msaa=1)(backend, tex, pi, vi))
+    assert np.isfinite(sharded).all()
+    np.testing.assert_allclose(sharded, single, atol=1e-6)

@@ -6,28 +6,25 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vkrt_tpu import config as C
-from vkrt_tpu.app.camera import Camera
-from vkrt_tpu.app.framebuffer import rmse
-from vkrt_tpu.app.overlay import draw_text
-from vkrt_tpu.golden.raster_oracle import render_golden_raster
-from vkrt_tpu.raster import render_raster_frame
-from vkrt_tpu.scene import build_texture_heap, flatten_model
-from vkrt_tpu.scene.model import Model
-from vkrt_tpu.wavefront.engine import make_backend, texture_arrays
+from vkrt_jax import config as C
+from vkrt_jax.app.camera import Camera
+from vkrt_jax.app.framebuffer import rmse
+from vkrt_jax.app.overlay import draw_text
+from vkrt_jax.golden.raster_oracle import render_golden_raster
+from vkrt_jax.raster import render_raster_frame
+from vkrt_jax.scene import build_texture_heap, flatten_model
+from vkrt_jax.wavefront.engine import make_backend, texture_arrays
 
 W, H = 64, 48
 
 
 @pytest.fixture(scope="module")
-def scene(sponza_model):
-    model = Model(submeshes=sponza_model.submeshes[:6],
-                  materials=sponza_model.materials,
-                  images=sponza_model.images)
+def scene(subset_model):
+    model = subset_model
     flat = flatten_model(model)
     heap = build_texture_heap(model.images)
     tex = texture_arrays(model.images, flat)
-    backend = make_backend(flat, "reference")
+    backend = make_backend(flat)
     cam = Camera(W, H)
     cam.set_position(C.CAMERA_START_POSITION)
     cam.set_rotation(C.CAMERA_START_ROTATION)
@@ -63,3 +60,15 @@ def test_overlay_draws_pixels():
     assert out.max() == 1.0
     assert (out != fb).any()
     assert (fb == 0).all()  # original untouched
+
+
+def test_raster_native_oracle_matches_brute(scene):
+    """The raster oracle's native-BVH visibility (used for full-scene
+    frames) agrees with its brute-force form."""
+    flat, heap, _, _, cam = scene
+    cfg = dataclasses.replace(C.reference_config(), width=32, height=24)
+    a = render_golden_raster(flat, heap, cam.proj_inverse, cam.view_inverse,
+                             cfg, msaa=1)
+    b = render_golden_raster(flat, heap, cam.proj_inverse, cam.view_inverse,
+                             cfg, msaa=1, accel="native")
+    assert rmse(a, b) <= 1e-3

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from vkrt_tpu.wavefront.resort import (CELL_KEY_BITS, OCTANT_BITS, cell_key,
+from vkrt_jax.wavefront.resort import (CELL_KEY_BITS, OCTANT_BITS, cell_key,
                                        inverse_permutation, octant_key,
                                        permute_rays, radix_partition_perm)
 

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from vkrt_tpu.runtime import FrameScheduler, device_info
+from vkrt_jax.runtime import FrameScheduler, device_info
 
 
 def test_device_info():

@@ -9,12 +9,12 @@ data independently.
 import jax.numpy as jnp
 import numpy as np
 
-from vkrt_tpu.golden.cpu_tracer import sample_texture
-from vkrt_tpu.scene.model import Image
-from vkrt_tpu.scene.textures import (bilinear_resize, build_material_heap,
+from vkrt_jax.golden.cpu_tracer import sample_texture
+from vkrt_jax.scene.model import Image
+from vkrt_jax.scene.textures import (bilinear_resize, build_material_heap,
                                      build_texture_heap)
-from vkrt_tpu.shade.sampling import sample_material
-from vkrt_tpu.utils import layout as L
+from vkrt_jax.shade.sampling import sample_material
+from vkrt_jax.utils import layout as L
 
 
 def make_images(rng):
@@ -121,8 +121,8 @@ def test_layout_roundtrips(rng):
 def test_compact_sampler_matches_full(rng):
     """sample_material_compact == sample_material on live lanes, zeros on
     dead rows, for any liveness pattern (incl. all-dead and all-live)."""
-    from vkrt_tpu.scene.textures import build_material_heap
-    from vkrt_tpu.shade.sampling import sample_material_compact
+    from vkrt_jax.scene.textures import build_material_heap
+    from vkrt_jax.shade.sampling import sample_material_compact
 
     imgs = make_images(rng)
     triples = np.array([[0, 1, 2], [2, 0, 1]], np.int32)
@@ -155,7 +155,7 @@ def test_trilinear_lod_blends_mip_levels(rng):
     """Per-ray mip LOD (beyond-parity, config.mip_lod): lod 0 must equal
     the base sampler; integer lod k must equal static-level sampling;
     fractional lod must blend the bracketing levels linearly."""
-    from vkrt_tpu.shade.sampling import sample_material_trilinear
+    from vkrt_jax.shade.sampling import sample_material_trilinear
 
     imgs = make_images(rng)
     triples = np.array([[0, 1, 2]], np.int32)
@@ -189,7 +189,7 @@ def test_ray_diff_lod_scales_with_footprint(rng):
     """Far/minified surfaces (large uv steps across lanes) must select a
     higher mip; a 1-texel-per-pixel footprint stays at lod 0; surface
     boundaries (mat change / miss) clamp to 0."""
-    from vkrt_tpu.shade.sampling import ray_diff_lod
+    from vkrt_jax.shade.sampling import ray_diff_lod
 
     lw = jnp.full((1, 6), 16, jnp.int32)
     lh = jnp.full((1, 6), 8, jnp.int32)

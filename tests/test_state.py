@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from vkrt_tpu import config as C
-from vkrt_tpu.app.camera import Camera
-from vkrt_tpu.app.state import load_state, save_state
+from vkrt_jax import config as C
+from vkrt_jax.app.camera import Camera
+from vkrt_jax.app.state import load_state, save_state
 
 
 def test_state_roundtrip(tmp_path):

@@ -3,10 +3,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from vkrt_tpu.accel import build_lbvh
-from vkrt_tpu.golden.cpu_tracer import closest_hit as brute_closest
-from vkrt_tpu.golden.cpu_tracer import occluded as brute_occluded
-from vkrt_tpu.rt import trace_closest, trace_occluded
+from vkrt_jax.accel import build_lbvh
+from vkrt_jax.golden.cpu_tracer import closest_hit as brute_closest
+from vkrt_jax.golden.cpu_tracer import occluded as brute_occluded
+from vkrt_jax.rt import trace_closest, trace_occluded
 
 
 def make_scene(rng, n_tris=300):
